@@ -1,51 +1,38 @@
-"""simplex-tpu: TPU-native dense two-phase simplex LP solver.
+"""simplex-tpu: dense two-phase simplex LP solver in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the CUDA
+A from-scratch JAX/XLA framework with the capabilities of the CUDA
 reference solver rik1599/SimplexOnCuda (see SURVEY.md for the component
 map). Public API:
 
     from simplex_tpu import Problem, solve, Status
-    result = solve(problem)            # jitted two-phase simplex on TPU
+    result = solve(problem)            # jitted two-phase simplex on device
     result = solve_oracle(problem)     # NumPy oracle (host)
 """
 
 import os as _os
+import pathlib as _pathlib
 
 import jax as _jax
 
-# Persistent compilation cache: the f64 blocked-pivot solve graph takes
-# minutes to compile on TPU (emulated-f64 expansion); caching makes every
-# later process's cold solve warm. Users override via the standard
-# JAX_COMPILATION_CACHE_DIR env var.
-#
-# The directory is keyed by the host CPU's feature flags: XLA:CPU cache
-# entries are ISA-specific AOT executables, and a container rescheduled
-# onto a different host microarchitecture between sessions would load
-# foreign-machine binaries — cpu_aot_loader warns about the machine-
-# feature mismatch ("could lead to execution errors such as SIGILL")
-# and intermittent SIGSEGVs inside jitted solves were observed exactly
-# that way.
-def _host_isa_tag() -> str:
-    import hashlib
-    import platform
-
-    flags = ""
-    try:
-        with open("/proc/cpuinfo") as fh:
-            for line in fh:
-                if line.startswith(("flags", "Features")):
-                    flags = line
-                    break
-    except OSError:
-        pass
-    return hashlib.sha1(
-        (platform.machine() + flags).encode()).hexdigest()[:12]
+#: The persistent compilation cache used when JAX_COMPILATION_CACHE_DIR
+#: is not set: one fixed, git-ignored directory inside the checkout, so
+#: every process of a checkout reuses the programs an earlier one
+#: compiled (the solve and refine programs compile once per shape).
+DEFAULT_CACHE_DIR = _pathlib.Path(__file__).resolve().parent.parent / ".jax_cache"
 
 
-if "JAX_COMPILATION_CACHE_DIR" not in _os.environ:
-    _jax.config.update(
-        "jax_compilation_cache_dir",
-        _os.path.expanduser(f"~/.cache/simplex_tpu_jax_{_host_isa_tag()}"))
+def compile_cache_dir(environ=_os.environ) -> str | None:
+    """The directory this package sets as JAX's persistent compilation
+    cache, or None when JAX_COMPILATION_CACHE_DIR is set — JAX reads
+    that variable itself and the package leaves it alone."""
+    if "JAX_COMPILATION_CACHE_DIR" in environ:
+        return None
+    return str(DEFAULT_CACHE_DIR)
+
+
+_cache_dir = compile_cache_dir()
+if _cache_dir is not None:
+    _jax.config.update("jax_compilation_cache_dir", _cache_dir)
     _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from .config import EPS, SolverOptions, Status, compare  # noqa: F401
@@ -62,7 +49,7 @@ __version__ = "0.1.0"
 
 
 def solve(problem, options=None, **kw):
-    """Solve a dense LP with the jitted TPU two-phase solver."""
+    """Solve a dense LP with the jitted two-phase device solver."""
     from .two_phase import solve as _solve
 
     return _solve(problem, options, **kw)
@@ -106,7 +93,7 @@ def solve_resumable(problem, checkpoint_path, checkpoint_every=1000,
 
 def refine_solution_host(A, b, c, base, n, m):
     """f64 basis-system refinement of a final basis against the
-    original problem data, on the host (refine.py; the r5 layer behind
+    original problem data, on the host (refine.py; the layer behind
     every certified result)."""
     from .refine import refine_solution_host as _r
 

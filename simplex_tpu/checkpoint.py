@@ -132,7 +132,7 @@ def _run_windows(tab: Tableau, options: SolverOptions, max_iter: int,
         if window not in runners:
             runners[window] = make_run(window)
         tab, status, it = runners[window](tab, costs0)
-        done += int(it)           # scalar readback syncs the executable
+        done += int(it)
         status = int(status)
         if status == int(Status.RUNNING) and int(it) == 0:
             # No progress is possible (device windows<max_iter guard
@@ -257,13 +257,11 @@ def _resumable_core(problem: Problem, checkpoint_path: str,
 
         refine_extraction = refine_enabled(options)
     if refine_extraction:
-        # f64 extraction refinement (mirror of two_phase.solve): even
-        # the all-f64 blocked loop carries ~1e-6-class TPU
-        # f64-EMULATION drift (BENCHMARKS accuracy table), so the
+        # f64 extraction refinement (mirror of two_phase.solve): the
         # last-resort fallback (two_phase.fallback_solve passes
-        # refine_extraction=True) refines against the host data with
-        # the final tableau's slack block as the preconditioner — a
-        # few matvecs, no LU.
+        # refine_extraction=True) certifies its result against the host
+        # data with the final tableau's slack block as the
+        # preconditioner — a few matvecs, no LU.
         from .refine import (RefineInfo, certificates_pass,
                              refine_solution_tableau_host)
 
@@ -330,7 +328,6 @@ def solve_resumable(problem: Problem, checkpoint_path: str,
 def solve_resumable_sharded(problem: Problem, mesh, checkpoint_path: str,
                             checkpoint_every: int = 1000,
                             options: SolverOptions | None = None,
-                            interpret: bool = False,
                             **replacements) -> SolveResult:
     """Sharded two-phase solve with iteration-level checkpoint/resume —
     the north-star n=1M column-sharded configuration is the
@@ -341,13 +338,10 @@ def solve_resumable_sharded(problem: Problem, mesh, checkpoint_path: str,
     orchestration core), with every stage shard_map'd over ``mesh``
     ('vars' axis): build + Gaussian elimination sharded, each window of
     pivots runs the full sharded hot loop (parallel/sharded.py
-    run_solve_loop_sharded — the fused-kernel blocked path when
-    eligible), and the checkpoint file holds the gathered GLOBAL arrays
-    plus the mesh width (``np.asarray`` on a sharded array assembles
-    it), so the artifact is identical in shape to a single-chip
-    checkpoint and resume just re-shards it onto the same mesh width.
-    ``interpret`` runs the Pallas passes in interpret mode (CPU-mesh
-    tests)."""
+    run_solve_loop_sharded), and the checkpoint file holds the gathered
+    GLOBAL arrays plus the mesh width (``np.asarray`` on a sharded array
+    assembles it), so the artifact is identical in shape to a single-chip
+    checkpoint and resume just re-shards it onto the same mesh width."""
     from jax.sharding import PartitionSpec as P
 
     from .parallel import sharded as sh
@@ -360,7 +354,6 @@ def solve_resumable_sharded(problem: Problem, mesh, checkpoint_path: str,
 
     m, n = problem.constraints, problem.vars
     n_shards = int(mesh.shape[sh.AXIS])
-    kernel = sh.kernel_blocked_sharded_enabled(options, interpret)
     r1 = n + 2 * m
 
     def specs(r):
@@ -374,8 +367,7 @@ def solve_resumable_sharded(problem: Problem, mesh, checkpoint_path: str,
 
     @jax.jit
     def build_fn(A, b):
-        tab = sh.build_phase1_sharded(A, b, n, m, n_shards, options,
-                                      kernel=kernel)
+        tab = sh.build_phase1_sharded(A, b, n, m, n_shards, options)
         tab = jax.lax.with_sharding_constraint(tab, shardings(r1))
         return jax.shard_map(
             sh.gaussian_eliminate_sharded, mesh=mesh,
@@ -388,7 +380,7 @@ def solve_resumable_sharded(problem: Problem, mesh, checkpoint_path: str,
         def make_run(window):
             core = jax.shard_map(
                 lambda t, c0: sh.run_solve_loop_sharded(
-                    t, options, window, c0, interpret),
+                    t, options, window, c0),
                 mesh=mesh, in_specs=(sp, P(sh.AXIS)),
                 out_specs=(sp, P(), P()), check_vma=False)
             return jax.jit(core)

@@ -1,6 +1,6 @@
 """Per-operation timing to CSV.
 
-TPU-native equivalent of the reference's chrono subsystem (reference:
+Equivalent of the reference's chrono subsystem (reference:
 include/chrono.cuh, src/chrono.cu): identical CSV schema — header
 ``vars,contraints,operation,elapsed_time`` (sic, the reference's typo is
 kept for downstream compatibility, chrono.cu:19), one row per timed

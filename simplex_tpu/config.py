@@ -1,6 +1,6 @@
 """Numerics config and solver options.
 
-TPU-native equivalent of the reference's cross-cutting macros layer
+Equivalent of the reference's cross-cutting macros layer
 (reference: include/macro.h:6-42): ``TYPE double`` becomes a configurable
 dtype (default float64, requiring ``jax_enable_x64``), and the three-way
 epsilon comparator ``compare(x, y, eps=1e-9)`` (macro.h:28-42) becomes the
@@ -31,9 +31,8 @@ EPS = 1e-9
 #: 1e-9 discipline sees noise as eligible entering columns and pivots
 #: degenerately forever at the optimal vertex (observed: n=300 m=900
 #: seed=777 phase 2 — the loop reaches the oracle optimum, then crawls
-#: until the iteration fuse; on TPU a 150k-pivot device call outlives
-#: the runtime's watchdog and kills the worker). Matches the CLI's
-#: long-standing f32 default.
+#: until the iteration fuse, 150k pivots in one device call). Matches
+#: the CLI's long-standing f32 default.
 EPS_F32 = 1e-4
 
 #: Relative pricing floor for f32 tableaus under cost normalization
@@ -95,8 +94,9 @@ class SolverOptions:
     degenerate problems with Bland's-rule anti-cycling.
     """
 
-    #: Tableau dtype. float64 matches the reference (macro.h:6); float32 is a
-    #: TPU-speed variant (f64 is software-emulated on TPU).
+    #: Tableau dtype. float64 matches the reference (macro.h:6); float32
+    #: halves the tableau's memory and bandwidth (the mixed production
+    #: mode pairs it with float64 vectors and f64 refinement).
     dtype: np.dtype = np.dtype(np.float64)
 
     #: Epsilon for all comparisons (reference macro.h:28). None (the
@@ -118,15 +118,6 @@ class SolverOptions:
     #: updates stay drift-free — f32-only runs were observed to
     #: accumulate O(0.1) absolute error in b over ~5k pivots, enough to
     #: misclassify feasible problems.
-    #:
-    #: Representation caveat (r3): inside the fused blocked-KERNEL loop
-    #: the costs AND the right-hand side are carried as double-float32
-    #: (hi, lo) pairs (Mosaic has no f64) — ~2^-48 relative precision,
-    #: but the FLOAT32 exponent range: values beyond ~1e38 (or denormal
-    #: below ~1e-38) in b/costs overflow the pair and poison the solve
-    #: (caught by the NUMERIC output guard, not silently wrong). Such
-    #: LPs should be rescaled, or solved with dtype=float64 (the XLA
-    #: loops keep true f64 vectors).
     vector_dtype: Optional[np.dtype] = None
 
     #: Scale-aware pricing for low-precision tableaus: each solve loop
@@ -152,12 +143,11 @@ class SolverOptions:
     #: 'dantzig' (reference rule: most negative reduced cost,
     #: solver.cu:87 — the parity rule), 'devex' (Forrest-Goldfarb
     #: reference-framework weights: pick the eligible column maximizing
-    #: cost^2 / weight; measured 35-45% fewer pivots than Dantzig on
-    #: seeded dense instances at ~zero per-pivot cost — see
-    #: BENCHMARKS.md), or 'bland' (always lowest eligible index;
+    #: cost^2 / weight; fewer pivots than Dantzig on seeded dense
+    #: instances, tests/test_blocked.py), or 'bland' (always lowest eligible index;
     #: anti-cycling). None (the default) resolves by mode into
     #: ``pivot_rule_resolved``: devex for the f32 blocked production
-    #: configurations (the measured-best rule IS the default path),
+    #: configurations,
     #: dantzig everywhere else — f64 keeps the reference's own rule
     #: (parity contract), and non-blocked loops match the reference's
     #: sequential economics. Solver code reads ``pivot_rule_resolved``.
@@ -178,51 +168,21 @@ class SolverOptions:
     #: Status.DEGENERATE like the reference does (twoPhaseMethod.cu:270-282).
     degeneracy: str = "continue"
 
-    #: Use Pallas kernels for the hot path when running on TPU.
-    #: 'auto' enables them on TPU backends, falls back to pure XLA elsewhere.
-    use_pallas: str | bool = "auto"
-
     #: Deferred block pivoting: accumulate this many rank-1 pivot updates
     #: as eta factors (C: R x L, F: L x M) and apply them to the tableau as
-    #: ONE MXU matmul ``T -= C @ F`` per window, dividing HBM traffic per
-    #: pivot by ~L. All per-pivot selections (entering argmin, ratio test)
+    #: ONE matrix product ``T -= C @ F`` per window, dividing memory
+    #: traffic per pivot by ~L. All per-pivot selections (entering argmin, ratio test)
     #: are computed exactly against the *virtual* current tableau
     #: ``T0 - C@F`` via small matvecs, so the pivot sequence is the same
     #: simplex algorithm (summation order differs from the sequential
     #: rank-1 path, so last-bit fp may differ). None/<=1 disables.
     block_pivots: Optional[int] = None
 
-    #: Exact window-boundary re-pricing cadence for the blocked-KERNEL
-    #: loops: recompute the reduced costs from the applied tableau every
-    #: this many windows (1 = every window, the most conservative). The
-    #: in-window cost updates already carry double-f32 (~2^-48 relative)
-    #: pair arithmetic, so the reprice corrects only the slow f32
-    #: tableau-noise drift; a window that ends with a non-RUNNING status
-    #: ALWAYS reprices so the premature-optimal check runs on exact
-    #: costs regardless of cadence. Skipped windows drop the reprice's
-    #: VPU pair-accumulation from the tableau sweep. Default 2: measured
-    #: 0.32 -> 0.27 ms/pivot at the flagship shape (r3), with cadence 4
-    #: no better — and the accuracy envelope unchanged (the drift the
-    #: reprice corrects accumulates at f32-tableau-noise rate, one
-    #: deferred window = ~L pivots of it; statuses still decided on
-    #: exact costs). The pure-XLA blocked loops ignore the cadence and
-    #: re-price every window (their reprice is one fused matvec).
-    reprice_every: int = 2
-
-    #: In-kernel window length for the BATCHED in-VMEM kernel (pivots
-    #: per grid step per lane). None = min(block_pivots, 32), the
-    #: accuracy-conservative default (f32 eta-correction noise grows
-    #: ~sqrt(L): max oracle rel err ~3.5e-5 at L=32, ~1.4e-4 at L=128 at
-    #: config-3 shapes). Raising it amortizes the measured ~0.1-0.2 ms
-    #: fixed cost per grid step over more pivots; must be a multiple
-    #: of 8 (the eta-slab stores).
-    batch_block_pivots: Optional[int] = None
-
     #: f64 basis-system refinement at solution extraction (refine.py):
     #: rebuild B from the ORIGINAL f64 problem data for the final basis,
     #: re-solve B x_B = b and B^T y = c_B with an f32 LU + f64 iterative
     #: refinement, and replace x/objective with the f64-certified values
-    #: (the TPU-native analogue of the reference's f64 getSolutionHost,
+    #: (the analogue of the reference's f64 getSolutionHost,
     #: twoPhaseMethod.cu:370-383, which extracts from an all-f64
     #: tableau). "auto" (default): enabled exactly for the mixed
     #: production mode (f32 tableau + f64 vectors) — the mode whose
@@ -244,19 +204,19 @@ class SolverOptions:
     refine_tol: float = 1e-6
 
     #: Opt-in power-of-two row/column equilibration at fill time
-    #: (scaling.py): closes the exponent-range gap between the mixed
-    #: mode's double-f32 pair vectors (~1e±38) and the reference's
-    #: all-f64 tolerance, exactly (power-of-two factors touch only fp
-    #: exponents, so pivot arithmetic sees the same mantissas). The eps
+    #: (scaling.py): brings extreme-magnitude data (|values| near f32's
+    #: ~1e38 limit) into the f32 tableau's range, exactly (power-of-two
+    #: factors touch only fp exponents, so pivot arithmetic sees the
+    #: same mantissas). The eps
     #: discipline then applies in the scaled units; OPTIMAL results
     #: refine/unwind back to original units. Host-wrapper feature
     #: (solve() and the CLI): the device cores always see the already-
     #: scaled arrays.
     equilibrate: bool = False
 
-    #: Pad the constraint axis to a multiple of this (TPU lane width).
+    #: Pad the constraint axis to a multiple of this.
     lane_pad: int = 128
-    #: Pad the variable axis to a multiple of this (TPU sublane tile).
+    #: Pad the variable axis to a multiple of this.
     sublane_pad: int = 8
 
     def resolved_max_iter(self, rows: int, cols: int) -> int:
@@ -269,9 +229,6 @@ class SolverOptions:
             raise ValueError(f"unknown pivot_rule {self.pivot_rule!r}")
         if self.degeneracy not in ("continue", "reference"):
             raise ValueError(f"unknown degeneracy policy {self.degeneracy!r}")
-        if int(self.reprice_every) < 1:
-            raise ValueError(
-                f"reprice_every must be >= 1, got {self.reprice_every}")
         if self.refine not in ("auto", True, False):
             raise ValueError(f"refine must be 'auto'/True/False, "
                              f"got {self.refine!r}")
@@ -281,16 +238,6 @@ class SolverOptions:
         if not (float(self.refine_tol) > 0.0):
             raise ValueError(
                 f"refine_tol must be > 0, got {self.refine_tol}")
-        if self.batch_block_pivots is not None and (
-                int(self.batch_block_pivots) < 8
-                or int(self.batch_block_pivots) > 128
-                or int(self.batch_block_pivots) % 8):
-            raise ValueError(
-                "batch_block_pivots must be a multiple of 8 in [8, 128], "
-                f"got {self.batch_block_pivots} (128 is the largest "
-                "window with a measured accuracy envelope — ~sqrt(L) f32 "
-                "eta drift — and bounds the kernel's L-scaled VMEM "
-                "scratch)")
         object.__setattr__(self, "dtype", np.dtype(self.dtype))
         object.__setattr__(
             self, "vector_dtype",
@@ -306,8 +253,7 @@ class SolverOptions:
             else (EPS if self.dtype.itemsize == 8 else EPS_F32))
         # pivot_rule follows the same raw-vs-derived pattern: None means
         # "resolve by mode" — devex for the f32 blocked production
-        # configurations (the measured-best rule ships as the default
-        # path, VERDICT r4 #2), dantzig for the f64 parity modes and the
+        # configurations, dantzig for the f64 parity modes and the
         # sequential loops (the reference's own rule, solver.cu:87).
         if self.pivot_rule is not None:
             resolved_rule = self.pivot_rule
@@ -342,34 +288,6 @@ def normalize_enabled(options: SolverOptions) -> bool:
     if options.normalize_costs == "auto":
         return np.dtype(options.dtype).itemsize == 4
     return bool(options.normalize_costs)
-
-
-def kernel_blocked_eligible(options: SolverOptions) -> bool:
-    """Backend-independent part of the fused-kernel gate: blocked mode
-    configured, f32 tableau, kernels not explicitly disabled. Shared by
-    kernel_blocked_enabled (which adds the TPU-backend requirement) and
-    by the sharded interpret path (which substitutes interpret mode for
-    the backend check) so the two can never silently diverge."""
-    if not (options.block_pivots and int(options.block_pivots) > 1):
-        return False
-    if np.dtype(options.dtype).itemsize != 4:
-        return False
-    return options.use_pallas == "auto" or bool(options.use_pallas)
-
-
-def kernel_blocked_enabled(options: SolverOptions) -> bool:
-    """True when the deferred-block-pivot loop should use the fused
-    Pallas per-pivot passes (kernels/blocked.py): f32 tableau, blocked
-    mode configured, running on a real TPU backend (Mosaic cannot lower
-    f64; CPU/GPU fall back to the pure-XLA blocked loop — tests exercise
-    the kernels there via interpret mode). Shared by the solver dispatch
-    and by the tableau padding (the kernels need the variable axis padded
-    to full 128-lane tiles)."""
-    if not kernel_blocked_eligible(options):
-        return False
-    import jax
-
-    return jax.default_backend() == "tpu"
 
 
 DEFAULT_OPTIONS = SolverOptions()

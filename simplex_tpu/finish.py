@@ -3,9 +3,8 @@
 The refinement layer (refine.py) certifies most mixed-precision solves
 at 1e-9; the residual class — long walks (>10-20k pivots) whose f32
 tableau drift steered the basis measurably off optimal (dual
-infeasibility O(1e-2..1) in the r5 sweep at 8192-class sizes) — used
-to fall back to a FULL f64 re-solve: 635-1393 s at the sweep's largest
-sizes, impossible at flagship scale. But the drifted basis is not
+infeasibility O(1e-2..1) observed at 8192-class sizes) — used to fall
+back to a FULL f64 re-solve, which costs the whole walk again in f64. But the drifted basis is not
 garbage: it is primal feasible and a few hundred pivots from optimal.
 This module rebuilds the exact f64 phase-2 tableau FOR THAT BASIS on
 the host (one LAPACK solve of B against the [A | I] block — BLAS-3,
@@ -46,7 +45,7 @@ def finish_from_basis(problem: Problem, base, options: SolverOptions,
     Iterates: the warm walk optimizes a micro-CLAMPED right-hand side
     (the drifted basis's exact-arithmetic infeasibility, <= the mixed
     envelope), so its optimum can sit ~clamp-size off the true one
-    (observed 4.5e-7 relative on silicon). When the finished basis
+    (observed 4.5e-7 relative). When the finished basis
     fails the STRONG (1e-9 scale-relative) certificates, one more
     round re-builds the exact tableau for it — the residual clamp
     shrinks each round — up to two extra rounds before settling for
@@ -90,8 +89,8 @@ def finish_from_basis(problem: Problem, base, options: SolverOptions,
     T_new = np.ascontiguousarray(X[:, :R2].T)     # (R2, m) variable-major
     b_new = X[:, R2]
 
-    # A drifted basis is typically MICRO-infeasible in exact f64 (the
-    # r5 flagship probe measured x_B min = -5.5e-6): within the mixed
+    # A drifted basis is typically MICRO-infeasible in exact f64 (x_B
+    # min around -5e-6 at flagship class): within the mixed
     # envelope, clamp it — warm finishing is then a BASIS PREDICTOR on
     # an invisibly perturbed right-hand side, and the finished basis is
     # re-certified against the ORIGINAL data below (an exact-refined

@@ -1,6 +1,6 @@
 """Seeded random problem generator.
 
-TPU-native equivalent of the reference's cuRAND generator component
+Equivalent of the reference's cuRAND generator component
 (reference: include/generator.cuh, src/generator.cu:9-32, src/problem.cu:49-126).
 
 The reference derives three sub-seeds from the user seed via C

@@ -1,6 +1,6 @@
 """Problem model and file I/O.
 
-TPU-native equivalent of the reference's L1 problem layer
+Equivalent of the reference's L1 problem layer
 (reference: include/problem.h:10-26, src/problem.cu:20-47,128-139,141-181).
 Problems are dense canonical-form LPs::
 

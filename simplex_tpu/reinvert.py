@@ -1,16 +1,16 @@
 """Device-side reinversion restart: rebuild the tableau for a drifted
-basis on the MXU and continue the mixed loop.
+basis on the device and continue the mixed loop.
 
-The classic simplex "reinversion" applied TPU-first. When refinement
-detects that a long mixed walk drifted (dual certificates fail —
-after >10-20k pivots the f32 tableau's accumulated rounding steers the
-walk measurably off optimal; r5 measured the basis just 21 pivots from
-optimum at flagship class), the recovery does not need a host or an
+The classic simplex "reinversion", done with matrix products. When
+refinement detects that a long mixed walk drifted (dual certificates
+fail — after >10-20k pivots the f32 tableau's accumulated rounding
+steers the walk measurably off optimal, typically to a basis a few
+dozen pivots from optimum), the recovery does not need a host or an
 LU:
 
 1. Sharpen the drifted slack block into an f32-exact basis inverse by
-   Newton-Schulz iteration, ``M <- M (2I - B M)`` — pure m x m MXU
-   matmuls; the block enters with ||I - BM|| ~ drift (1e-4..1e-1), so
+   Newton-Schulz iteration, ``M <- M (2I - B M)`` — pure m x m
+   matrix products (all at Precision.HIGHEST); the block enters with ||I - BM|| ~ drift (1e-4..1e-1), so
    2-3 quadratically-convergent steps land at f32 round-off.
 2. Rebuild the phase-2 tableau exactly for that basis: structural
    block ``(M A)^T``, slack block ``M^T``, right-hand side = the
@@ -25,8 +25,8 @@ LU:
    certifies at 1e-9.
 
 This replaces minutes of host warm finishing (LAPACK dgesv against
-n+m right-hand sides) or a full f64 re-solve with ~a second of MXU
-work at reference sizes. solve() drives up to two rounds before
+n+m right-hand sides) or a full f64 re-solve with a few m x m and
+m x n matrix products. solve() drives up to two rounds before
 handing to the host tiers (finish.py, then the chunked f64 re-solve).
 """
 

@@ -1,4 +1,4 @@
-"""Solve result container shared by the oracle and the TPU solver."""
+"""Solve result container shared by the oracle and the device solver."""
 
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """The pivot iteration hot loop, jitted.
 
-TPU-native equivalent of the reference's solve loop (reference:
+Equivalent of the reference's solve loop (reference:
 src/solver.cu:78-149) and its reduction primitives (src/reduction.cu).
 The entire iteration — entering-variable argmin, unboundedness test,
 min-ratio leaving test, rank-1 tableau update — lives inside one
@@ -11,14 +11,14 @@ copies plus full device synchronisations per iteration, SURVEY.md §3.2).
 Reductions: the reference's warp-shuffle two-pass argmin kernels
 (reduction.cu:10-104) and the DBL_MAX-masked ratio-test indicator
 (reduction.cu:106-140) become masked ``jnp.argmin`` calls XLA lowers to
-on-chip tree reductions; the unboundedness max-reduction
+on-device tree reductions; the unboundedness max-reduction
 (``isLessOrEqualThanZero``, reduction.cu:143-201) becomes ``jnp.any``.
 
 The rank-1 update (``updateContraintsMatrix`` + ``updateCostsVector``,
 solver.cu:34-75) is a single fused elementwise pass over the tableau —
-one read + one write of T per pivot, the HBM-bandwidth floor. An optional
-Pallas kernel path (kernels/pivot.py) covers what XLA's fusion leaves on
-the table.
+one read + one write of T per pivot, the memory-bandwidth floor. The
+deferred block-pivot loop (``solve_loop_blocked``) amortises that pass
+over a window of pivots.
 
 Beyond the reference: Bland's-rule anti-cycling fallback (activated after
 ``bland_threshold`` consecutive non-improving pivots, reset on progress)
@@ -33,11 +33,10 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax import lax
 
 from .config import SolverOptions, Status
-from .tableau import Tableau, accum_matvec, pow2_chunk
+from .tableau import Tableau, accum_matvec
 
 
 class LoopState(NamedTuple):
@@ -160,8 +159,7 @@ def iteration_body(state: LoopState, options: SolverOptions) -> LoopState:
 def anticycling_update(do, improved, prev_stall, prev_bland, *,
                        bland_static: bool, threshold):
     """The shared stall/Bland anti-cycling policy, identical across
-    every solve loop (sequential, Pallas, blocked, blocked-kernel, and
-    their three sharded mirrors): an applied pivot that improves z by
+    every solve loop (sequential, blocked, and their sharded mirrors): an applied pivot that improves z by
     >= eps resets the stall counter and leaves Bland mode; a
     non-improving pivot increments it and enters Bland once the counter
     reaches ``threshold``. ``bland_static`` pins Bland on
@@ -203,201 +201,25 @@ def solve_loop(tab: Tableau, options: SolverOptions,
     return final.tab, final.status, final.iterations
 
 
-class PallasLoopState(NamedTuple):
-    """solve_loop_pallas carry: the entering-variable candidates over the
-    current costs are part of the state — they were computed *during* the
-    previous pivot's fused update pass (kernels/pivot.py), so the body
-    never re-reads the cost vector."""
-
-    tab: Tableau
-    status: jax.Array
-    iterations: jax.Array
-    stall: jax.Array
-    bland: jax.Array
-    h_d: jax.Array      # Dantzig candidate (global row) over current costs
-    v_d: jax.Array      # its reduced cost
-    h_b: jax.Array      # Bland candidate (BIG_INDEX if none eligible)
-    v_b: jax.Array      # its reduced cost
-
-
-def solve_loop_pallas(tab: Tableau, options: SolverOptions,
-                      max_iter: int) -> tuple[Tableau, jax.Array, jax.Array]:
-    """Pallas-fused variant of solve_loop: per pivot, ONE pass over the
-    tableau (kernels/pivot.py fuses the rank-1 update, the cost-row update
-    and the next entering argmin); only the O(m)/O(grid) glue stays XLA.
-    Identical pivot sequence and statuses to solve_loop by construction."""
-    from .kernels.pivot import BIG_INDEX, entering_candidates, fused_pivot
-
-    eps = float(options.eps_resolved)
-    bland_static = options.pivot_rule_resolved == "bland"
-    threshold = options.bland_threshold
-    r_pad = tab.rows_padded
-
-    def cond(s: PallasLoopState):
-        return (s.status == int(Status.RUNNING)) & (s.iterations < max_iter)
-
-    def body(s: PallasLoopState):
-        tab = s.tab
-        use_bland = s.bland & (s.h_b < BIG_INDEX)
-        h = jnp.where(use_bland, s.h_b, s.h_d)
-        minc = jnp.where(use_bland, s.v_b, s.v_d)
-        optimal = minc > -eps
-
-        a_h = tab.T[jnp.minimum(h, r_pad - 1)]
-        k, unbounded = ratio_test(tab, a_h, eps)
-        do_pivot = ~(optimal | unbounded)
-
-        # The kernel runs unconditionally; with do_pivot=False it is the
-        # identity pass (no cond => no extra tableau buffer; T and costs
-        # alias in place through the pallas_call).
-        colk = tab.T[:, k]
-        p = a_h[k]
-        T2, costs2, h_d, v_d, h_b, v_b = fused_pivot(
-            tab.T, tab.costs, colk, a_h, p, minc, k, tab.r, eps,
-            do_pivot=do_pivot)
-        h_d = jnp.where(do_pivot, h_d, s.h_d)
-        v_d = jnp.where(do_pivot, v_d, s.v_d)
-        h_b = jnp.where(do_pivot, h_b, s.h_b)
-        v_b = jnp.where(do_pivot, v_b, s.v_b)
-
-        p_safe = jnp.where(do_pivot, p, jnp.ones_like(p))
-        bk = tab.b[k]
-        factor = a_h / p_safe
-        is_k = jnp.arange(tab.cols_padded) == k
-        b2 = jnp.where(do_pivot,
-                       jnp.where(is_k, bk / p_safe, tab.b - bk * factor),
-                       tab.b)
-        z2 = jnp.where(do_pivot, tab.z - (minc / p_safe) * bk, tab.z)
-        base2 = jnp.where(do_pivot,
-                          tab.base.at[k].set(h.astype(tab.base.dtype)),
-                          tab.base)
-        tab2 = dataclasses.replace(tab, T=T2, b=b2, costs=costs2,
-                                   z=z2, base=base2)
-
-        status = jnp.where(
-            optimal, int(Status.OPTIMAL),
-            jnp.where(unbounded, int(Status.UNBOUNDED),
-                      int(Status.RUNNING))).astype(jnp.int32)
-
-        improved = jnp.abs(tab2.z - tab.z) >= eps
-        stall, bland = anticycling_update(
-            do_pivot, improved, s.stall, s.bland,
-            bland_static=bland_static, threshold=threshold)
-
-        return PallasLoopState(tab2, status,
-                               s.iterations + do_pivot.astype(jnp.int32),
-                               stall, bland, h_d, v_d, h_b, v_b)
-
-    h_d, v_d, h_b, v_b = entering_candidates(tab.costs, tab.r, eps)
-    init = PallasLoopState(
-        tab, jnp.asarray(int(Status.RUNNING), jnp.int32),
-        jnp.zeros((), jnp.int32), jnp.zeros((), jnp.int32),
-        jnp.asarray(bland_static), h_d, v_d, h_b, v_b)
-    final = lax.while_loop(cond, body, init)
-    return final.tab, final.status, final.iterations
-
-
-def _dot_precision(dtype):
-    """HIGHEST forces exact f32 matmuls (bf16 multi-pass) on the MXU; for
-    emulated f64, DEFAULT and HIGHEST are identical in accuracy (measured
-    ~3e-11 max rel err) but HIGHEST allocates far larger temporaries — at
-    1.6 GB tableau scale enough to OOM the chip."""
-    return (lax.Precision.HIGHEST if jnp.dtype(dtype) == jnp.float32
-            else lax.Precision.DEFAULT)
+def _dot(a: jax.Array, b: jax.Array, dims) -> jax.Array:
+    """The blocked loops' products at full precision in the operands'
+    dtype: HIGHEST keeps f32 products out of TF32 on the GPU, and f64
+    runs as a native f64 dot."""
+    return lax.dot_general(a, b, dims, precision=lax.Precision.HIGHEST,
+                           preferred_element_type=a.dtype)
 
 
 def apply_window(T: jax.Array, C: jax.Array, F: jax.Array) -> jax.Array:
     """``T - C @ F`` — the once-per-window tableau apply of the deferred
-    block-pivot scheme. For f64, XLA:TPU's emulated matmul materialises an
-    f32[8, R, M] temporary (6 GB at the reference's 8192x8192 size), so
-    the apply is chunked over row blocks to bound the temporaries; f32
-    goes through one full-size MXU matmul."""
-    dtype = T.dtype
-    r_pad, m_pad = T.shape
-    L = C.shape[1]
-
-    dims = (((1,), (0,)), ((), ()))
-
-    def chunk_apply(Ti, Ci):
-        if dtype.itemsize >= 8:
-            return Ti - _split_dot(Ci, F, dims)
-        return Ti - lax.dot_general(
-            Ci, F, dims,
-            preferred_element_type=dtype,
-            precision=_dot_precision(dtype))
-
-    if dtype.itemsize <= 4:
-        return chunk_apply(T, C)
-
-    # Largest power-of-two row chunk that divides R_pad and keeps the
-    # emulation temporaries (~2 x 8 x chunk x M x 4 bytes) under ~1 GB.
-    chunk = pow2_chunk(r_pad, m_pad, 128, 1 << 30)
-    if chunk >= r_pad:
-        return chunk_apply(T, C)
-    n_chunks = r_pad // chunk
-
-    def body(i, T):
-        sl = lax.dynamic_slice_in_dim(T, i * chunk, chunk, 0)
-        Ci = lax.dynamic_slice_in_dim(C, i * chunk, chunk, 0)
-        return lax.dynamic_update_slice_in_dim(
-            T, chunk_apply(sl, Ci), i * chunk, 0)
-
-    return lax.fori_loop(0, n_chunks, body, T)
-
-
-def _split_dot(A64: jax.Array, B64: jax.Array, dims) -> jax.Array:
-    """Double-f32 (Dekker-split) f64 matmul: A and B split into f32
-    hi+lo parts, three exact-f32-product MXU matmuls accumulated in f64.
-    Error ~2^-48 relative (the dropped lo*lo term) — ~1000x tighter than
-    XLA's emulated f64 dot (~3e-11), whose noise otherwise propagates
-    through b and costs the blocked-f64 mode ~1e-6 of objective
-    accuracy."""
-    A1 = A64.astype(jnp.float32)
-    A2 = (A64 - A1).astype(jnp.float32)
-    B1 = B64.astype(jnp.float32)
-    B2 = (B64 - B1).astype(jnp.float32)
-
-    def d(a, b):
-        return lax.dot_general(a, b, dims,
-                               preferred_element_type=jnp.float64,
-                               precision=lax.Precision.HIGHEST)
-
-    return d(A1, B1) + (d(A1, B2) + d(A2, B1))
+    block-pivot scheme (C: R x L eta columns, F: L x M eta rows)."""
+    return T - _dot(C, F, (((1,), (0,)), ((), ())))
 
 
 def apply_window_T(Tt: jax.Array, C: jax.Array, F: jax.Array) -> jax.Array:
     """``Tt - F^T @ C`` for the transposed blocked loop: Tt (M_pad,
     R_pad), C (L, R_pad) holds the eta columns as rows, F (L, M_pad) the
-    eta rows. f64 goes through the Dekker-split matmul (exact to ~2^-48),
-    chunked along the (large) variable axis to bound the f64-accumulation
-    temporaries (see apply_window)."""
-    dtype = Tt.dtype
-    m_pad, r_pad = Tt.shape
-    dims = (((0,), (0,)), ((), ()))
-
-    def chunk_apply(Ti, Ci):
-        if dtype.itemsize >= 8:
-            return Ti - _split_dot(F, Ci, dims)
-        return Ti - lax.dot_general(
-            F, Ci, dims,
-            preferred_element_type=dtype,
-            precision=_dot_precision(dtype))
-
-    if dtype.itemsize <= 4:
-        return chunk_apply(Tt, C)
-
-    chunk = pow2_chunk(r_pad, m_pad, 128, 1 << 30)
-    if chunk >= r_pad:
-        return chunk_apply(Tt, C)
-    n_chunks = r_pad // chunk
-
-    def body(i, Tt):
-        sl = lax.dynamic_slice_in_dim(Tt, i * chunk, chunk, 1)
-        Ci = lax.dynamic_slice_in_dim(C, i * chunk, chunk, 1)
-        return lax.dynamic_update_slice_in_dim(
-            Tt, chunk_apply(sl, Ci), i * chunk, 1)
-
-    return lax.fori_loop(0, n_chunks, body, Tt)
+    eta rows."""
+    return Tt - _dot(F, C, (((0,), (0,)), ((), ())))
 
 
 class BlockedLoopState(NamedTuple):
@@ -422,14 +244,14 @@ class BlockedLoopState(NamedTuple):
 def solve_loop_blocked(tab: Tableau, options: SolverOptions,
                        max_iter: int, costs0: jax.Array | None = None
                        ) -> tuple[Tableau, jax.Array, jax.Array]:
-    """Deferred block-pivot loop: the TPU-first redesign of the hot loop.
+    """Deferred block-pivot loop: the production hot loop.
 
     ``costs0`` — the phase's ORIGINAL (pre-Gaussian-elimination) cost
     vector — enables exact re-pricing at every window boundary; pass it
     whenever available (two_phase does) to make f32 runs drift-immune.
 
     The reference (and the L=1 paths here) stream the whole tableau
-    through HBM once per pivot (rank-1 update, solver.cu:34-46) — at
+    through device memory once per pivot (rank-1 update, solver.cu:34-46) — at
     large sizes that is the entire runtime (>99%, relazione.Rmd:506) and
     is memory-bound. This loop instead keeps the tableau STALE for a
     window of ``L = options.block_pivots`` pivots, accumulating each
@@ -439,8 +261,8 @@ def solve_loop_blocked(tab: Tableau, options: SolverOptions,
         F[t, :] = v_t      (live entering row / p, with v_t[k] = 1 - 1/p)
 
     and applies ``T <- T - C^T... i.e. Tt -= F^T @ C`` ONCE per window —
-    an MXU matmul — amortising the 2-pass HBM cost of the update over L
-    pivots. Within the window every quantity is computed EXACTLY against
+    one matrix product — amortising the 2-pass memory cost of the update
+    over L pivots. Within the window every quantity is computed EXACTLY against
     the live (virtual) tableau:
 
         live column j:  Tt[j, :] - F[:, j] @ C     (contiguous row + O(RL))
@@ -449,13 +271,12 @@ def solve_loop_blocked(tab: Tableau, options: SolverOptions,
     while costs, b, z and base are updated exactly every pivot (O(R+M)).
 
     Layout note (why transposed): in the reference's variable-major
-    layout the leaving column T[:, k] is a strided gather that reads a
-    whole (8, 128) tile per 8 elements — ~60 MB of traffic for a 0.5 MB
-    vector at the north-star size, dominating the amortised loop. Stored
-    constraint-major, that fetch is one contiguous row (0.5 MB) and the
-    much shorter entering-row fetch takes the stride penalty (~5 MB).
-    The two physical transposes per phase are amortised over thousands
-    of pivots.
+    layout the leaving column T[:, k] is a strided gather over the long
+    variable axis (R_pad elements, one memory transaction each). Stored
+    constraint-major, that fetch is one contiguous row and only the much
+    shorter entering-row fetch (M_pad elements) is strided. The two
+    physical transposes per phase are amortised over thousands of
+    pivots.
 
     The pivot *choices* (Dantzig/Bland entering, ratio test, statuses,
     eps discipline) are identical to solve_loop; only floating-point
@@ -471,22 +292,17 @@ def solve_loop_blocked(tab: Tableau, options: SolverOptions,
     vdtype = tab.costs.dtype
     row_iota = jnp.arange(r_pad)
     row_mask = row_iota < tab.r
-    # Re-price only for drift-prone (narrow-tableau) configs: f64
-    # incremental updates drift ~1e-13, while re-pricing through the
-    # TPU's emulated f64 matmul would inject ~1e-7 absolute noise.
-    wide = jnp.dtype(dtype).itemsize >= 8
-    if wide:
+    # Re-price only f32 tableaus, whose incremental costs drift. f64
+    # updates drift ~1e-13, and re-pricing them would change the pivot
+    # walk that the f64 parity tests pin (whether f64 should re-price
+    # is an open question in ROADMAP.md).
+    if jnp.dtype(dtype).itemsize >= 8:
         costs0 = None
 
     def corr_vec(Ct, w):
         """w (L,) against Ct (L, K) -> (K,): the per-pivot eta
-        correction. For f64 use elementwise multiply+sum — TPU f64
-        *elementwise* emulation is exactly rounded, while the emulated
-        f64 MXU dot carries ~3e-11 relative error, enough to walk the
-        pivot path off the oracle's by ~1e-6 in objective."""
-        if wide:
-            return (Ct * w[:, None]).sum(axis=0)
-        return jnp.dot(w, Ct, precision=_dot_precision(dtype))
+        correction."""
+        return _dot(w, Ct, (((0,), (0,)), ((), ())))
 
     def entering(costs, w, bland_flag):
         """choose_entering on the bare cost vector (same semantics),
@@ -517,9 +333,8 @@ def solve_loop_blocked(tab: Tableau, options: SolverOptions,
                                      jnp.maximum(wh / (p * p).astype(
                                          w.dtype), 1.0),
                                      w2[lv]))
-        # Per-update cap + NaN guard (see kernels/blocked.py: overflow
-        # to inf then inf*0=NaN poisons the score argmax), then the
-        # framework re-anchor.
+        # Per-update cap + NaN guard (overflow to inf then inf*0=NaN
+        # would poison the score argmax), then the framework re-anchor.
         w2 = jnp.minimum(w2, 1e12)
         w2 = jnp.where(jnp.isnan(w2), jnp.ones_like(w2), w2)
         w2 = jnp.where(jnp.max(w2) > 1e8, jnp.ones_like(w2), w2)
@@ -624,308 +439,12 @@ def solve_loop_blocked(tab: Tableau, options: SolverOptions,
     return out_tab, final.status, final.iterations
 
 
-class BlockedKernelState(NamedTuple):
-    """solve_loop_blocked_kernel carry: like BlockedLoopState but the
-    reduced costs live as a double-float32 (hi, lo) pair — the form the
-    fused Pallas pass updates with error-free transforms (~2^-48
-    relative, f64-equivalent; Mosaic cannot lower real f64) — and the
-    next entering candidates (computed by the previous pivot's fused
-    pass) ride in the carry, so nothing ever re-reads the cost vector."""
-
-    Tt: jax.Array
-    bhi: jax.Array     # right-hand side as a double-f32 pair: the f64
-    blo: jax.Array     # XLA glue moved into the kernels (Mosaic has no
-    #                    f64), ~2^-48 relative — same class as the costs
-    chi: jax.Array
-    clo: jax.Array
-    z: jax.Array
-    base: jax.Array
-    status: jax.Array
-    iterations: jax.Array
-    stall: jax.Array
-    bland: jax.Array
-    h_d: jax.Array     # main candidate (Dantzig argmin / devex argmax)
-    h_b: jax.Array     # Bland candidate (BIG_INDEX if none eligible)
-    vd_hi: jax.Array   # reduced cost at h_d, double-f32 pair
-    vd_lo: jax.Array
-    vb_hi: jax.Array   # reduced cost at h_b (inf when none eligible)
-    vb_lo: jax.Array
-    w: jax.Array       # devex weights ((R_pad,) f32; all-ones + untouched
-    #                    under dantzig/bland)
-    windows: jax.Array  # outer-loop count (absolute device-time bound)
-
-
-def solve_loop_blocked_kernel(tab: Tableau, options: SolverOptions,
-                              max_iter: int,
-                              costs0: jax.Array | None = None,
-                              interpret: bool = False
-                              ) -> tuple[Tableau, jax.Array, jax.Array]:
-    """Deferred block pivoting with the per-pivot hot path fused into two
-    Pallas passes (kernels/blocked.py):
-
-    * R side: pivot-row fetch + liveness-limited eta correction over C +
-      double-f32 cost update + next entering argmin — ONE kernel where
-      the XLA loop pays four separate gather/dot/update/argmin ops
-      (measured ~360 us of overhead-bound ops at the flagship shape).
-    * M side: entering-column fetch + eta correction over F — one kernel
-      for the two ops (~135 us) the XLA loop issues.
-
-    Same pivot-selection semantics as solve_loop_blocked (Dantzig/Bland,
-    eps discipline, statuses); cost arithmetic is double-f32 instead of
-    the vector dtype, with the same exact window-boundary re-pricing, so
-    f32/mixed accuracy behaviour is unchanged. Requires an f32 tableau
-    padded to 128-lane tiles on the variable axis (tableau.padded_dims
-    arranges this when config.kernel_blocked_enabled)."""
-    from .kernels.blocked import (BIG_INDEX, ah_ratio_pass,
-                                  apply_reprice_pass,
-                                  apply_window_pass, colk_costs_pass,
-                                  ff32_from_f64, ff32_to_f64)
-
-    eps = float(options.eps_resolved)
-    bland_static = options.pivot_rule_resolved == "bland"
-    devex = options.pivot_rule_resolved == "devex"
-    threshold = options.bland_threshold
-    L = int(options.block_pivots or 1)
-    r_pad, m_pad = tab.T.shape
-    dtype = tab.T.dtype
-    vdtype = tab.costs.dtype
-    assert dtype == jnp.float32 and r_pad % 128 == 0, (dtype, r_pad)
-    row_iota = jnp.arange(r_pad)
-    row_mask = row_iota < tab.r
-
-    def xla_candidates(chi, clo, w):
-        """(h_d, vd pair, h_b, vb pair) over a (hi, lo) cost pair — used
-        at init and after each window's exact re-pricing (same
-        lowest-index tie rule as the kernel's folded reductions; the
-        argmin compares the full round-tripped view, which for
-        normalized pairs orders identically to (hi, then lo)). Under
-        devex the main candidate maximizes cost^2 / w over eligible
-        columns instead; an all-ineligible vector yields an inf value
-        pair (the loop's optimality signal) either way."""
-        view = ff32_to_f64(chi, clo, vdtype)
-        masked = jnp.where(row_mask, view, jnp.inf)
-        eligible = masked <= -eps
-        inf32 = jnp.float32(jnp.inf)
-        if devex:
-            score = jnp.where(eligible,
-                              masked * masked / w.astype(vdtype),
-                              -jnp.inf)
-            h_d = jnp.argmax(score).astype(jnp.int32)
-            none_d = ~eligible.any()
-            vd_hi = jnp.where(none_d, inf32, chi[h_d])
-            vd_lo = jnp.where(none_d, jnp.float32(0), clo[h_d])
-        else:
-            h_d = jnp.argmin(masked).astype(jnp.int32)
-            vd_hi, vd_lo = chi[h_d], clo[h_d]
-        h_b = jnp.min(jnp.where(eligible, row_iota,
-                                BIG_INDEX)).astype(jnp.int32)
-        hb_safe = jnp.minimum(h_b, r_pad - 1)
-        none = h_b >= BIG_INDEX
-        return (h_d, vd_hi, vd_lo, h_b,
-                jnp.where(none, inf32, chi[hb_safe]),
-                jnp.where(none, jnp.float32(0), clo[hb_safe]))
-
-    def inner(t, carry):
-        C, F, s = carry
-        # Per-pivot iteration fuse — see solve_loop_blocked.inner.
-        active = ((s.status == int(Status.RUNNING))
-                  & (s.iterations < max_iter))
-
-        use_bland = s.bland & (s.h_b < BIG_INDEX)
-        h = jnp.where(use_bland, s.h_b, s.h_d).astype(jnp.int32)
-        h_safe = jnp.minimum(h, r_pad - 1)
-        # minc rides the carry (the previous pass's candidate fold
-        # emitted its (hi, lo) value) — no gather from the cost pair.
-        minc = ff32_to_f64(jnp.where(use_bland, s.vb_hi, s.vd_hi),
-                           jnp.where(use_bland, s.vb_lo, s.vd_lo),
-                           vdtype)
-        optimal = minc > -eps
-
-        # M-side pass: live entering column + the min-ratio leaving
-        # test folded across its tiles (pair-arithmetic ratios; the
-        # leaving choice can differ from the old f64 glue only on
-        # sub-2^-48 near-ties — exact degenerate ties break identically).
-        a_h32, k, p32, bk_hi, bk_lo, unb = ah_ratio_pass(
-            s.Tt, F, C, s.bhi, s.blo, h_safe, t.astype(jnp.int32),
-            eps=eps, interpret=interpret)
-        unbounded = unb != 0
-        # k is the BIG_INDEX sentinel exactly when unbounded (no
-        # eligible lane) — clamp so the do=False identity pass that
-        # still runs below indexes in range.
-        k = jnp.minimum(k, m_pad - 1)
-        do = active & ~(optimal | unbounded)
-
-        p = p32.astype(vdtype)
-        p = jnp.where(do, p, jnp.ones_like(p))
-        p32s = jnp.where(do, p32, jnp.float32(1))
-        u = jnp.where(do, minc / p, jnp.zeros_like(minc))
-        u_hi, u_lo = ff32_from_f64(u)
-        # R-side pass, with the b/base/eta-row glue folded in (bf) and
-        # (under devex) the weight update + score-based candidate fold.
-        devex_args = ((s.w, s.w[h_safe], s.base[k].astype(jnp.int32))
-                      if devex else None)
-        outs = colk_costs_pass(
-            s.Tt, C, F, s.chi, s.clo, k, t.astype(jnp.int32),
-            u_hi, u_lo, r=tab.r, eps=eps, do=do,
-            bf=(a_h32, s.bhi, s.blo, s.base, h, p32s, bk_hi, bk_lo),
-            devex=devex_args, interpret=interpret)
-        (C2, chi2, clo2, h_d, vd_hi, vd_lo, h_b, vb_hi, vb_lo,
-         bhi2, blo2, base2, v) = outs[:13]
-        w2 = outs[13] if devex else s.w
-
-        bk = ff32_to_f64(bk_hi, bk_lo, vdtype)
-        z2 = jnp.where(do, s.z - u * bk, s.z)
-        F2 = F.at[t, :].set(v)             # v already zeroed when !do
-
-        status = jnp.where(
-            active,
-            jnp.where(optimal, int(Status.OPTIMAL),
-                      jnp.where(unbounded, int(Status.UNBOUNDED),
-                                int(Status.RUNNING))),
-            s.status).astype(jnp.int32)
-
-        improved = jnp.abs(z2 - s.z) >= eps
-        stall, bland = anticycling_update(
-            do, improved, s.stall, s.bland,
-            bland_static=bland_static, threshold=threshold)
-
-        return (C2, F2, BlockedKernelState(
-            s.Tt, bhi2, blo2, chi2, clo2, z2, base2, status,
-            s.iterations + do.astype(jnp.int32), stall, bland, h_d, h_b,
-            vd_hi, vd_lo, vb_hi, vb_lo, w2, s.windows))
-
-    reprice_every = max(1, int(options.reprice_every))
-
-    def outer(s: BlockedKernelState):
-        C = jnp.zeros((L, r_pad), dtype)
-        F = jnp.zeros((L, m_pad), dtype)
-        C, F, s = lax.fori_loop(0, L, inner, (C, F, s))
-        if devex:
-            # Re-anchor the devex reference framework once per window
-            # when the weights drift too far (the oracle does this per
-            # pivot; a window's extra drift is bounded by L updates).
-            s = s._replace(w=jnp.where(jnp.max(s.w) > 1e8,
-                                       jnp.ones_like(s.w), s.w))
-        if costs0 is None:
-            Tt2 = apply_window_pass(s.Tt, C, F, interpret=interpret)
-            s = s._replace(Tt=Tt2)
-        else:
-            # Exact window-boundary re-pricing (see solve_loop_blocked):
-            # also re-derives the double-f32 pair and the carried
-            # candidates from the exact costs. The premature test and the
-            # candidates MUST come from the round-tripped (hi + lo) view
-            # — the representation the in-window optimality test reads —
-            # not the raw f64 costs: at a knife-edge value (exact
-            # <= -eps, round-trip > -eps) the raw test re-opens a window
-            # whose first pivot then declares optimal without applying
-            # anything, and the premature/zero-pivot cycle loops the
-            # device forever (observed as a TPU watchdog kill at
-            # n=300 m=900 seed=777 phase 2).
-            #
-            # Cadence (options.reprice_every): the reprice arithmetic is
-            # skipped inside the kernel on off-cadence windows (the
-            # apply still runs; the in-window double-f32 cost updates
-            # are ~2^-48 exact, so only slow f32 tableau-noise drift
-            # accumulates between re-prices) — EXCEPT that a window
-            # ending non-RUNNING always re-prices so the premature-
-            # optimal check runs on exact costs regardless of cadence.
-            do_r = ((s.status != int(Status.RUNNING))
-                    | (lax.rem(s.windows + 1,
-                               jnp.int32(reprice_every)) == 0))
-            valid = s.base < tab.r
-            coeffs = jnp.where(
-                valid, costs0[jnp.minimum(s.base, r_pad - 1)], 0.0)
-            # Fused apply + pair-accumulation reprice: one tableau sweep
-            # does both (see kernels.blocked.apply_reprice_pass; the
-            # standalone widening-dot reprice alone cost 539 ms/window).
-            c_hi, c_lo = ff32_from_f64(coeffs)
-            Tt2, mv_hi, mv_lo = apply_reprice_pass(
-                s.Tt, C, F, c_hi, c_lo, do_reprice=do_r,
-                interpret=interpret)
-            s = s._replace(Tt=Tt2)
-            costs_exact = costs0 - (mv_hi.astype(vdtype)
-                                    + mv_lo.astype(vdtype))
-            chi, clo = ff32_from_f64(costs_exact)
-            costs_view = ff32_to_f64(chi, clo, vdtype)
-            vmin = jnp.min(jnp.where(row_mask, costs_view, jnp.inf))
-            premature = (s.status == int(Status.OPTIMAL)) & (vmin <= -eps)
-            status = jnp.where(do_r & premature, int(Status.RUNNING),
-                               s.status).astype(jnp.int32)
-            h_d, vd_hi, vd_lo, h_b, vb_hi, vb_lo = xla_candidates(
-                chi, clo, s.w)
-            # On a skipped reprice the mv pair is zeros — keep the
-            # in-window pair and candidates (still current).
-            s = s._replace(
-                chi=jnp.where(do_r, chi, s.chi),
-                clo=jnp.where(do_r, clo, s.clo),
-                status=status,
-                h_d=jnp.where(do_r, h_d, s.h_d),
-                h_b=jnp.where(do_r, h_b, s.h_b),
-                vd_hi=jnp.where(do_r, vd_hi, s.vd_hi),
-                vd_lo=jnp.where(do_r, vd_lo, s.vd_lo),
-                vb_hi=jnp.where(do_r, vb_hi, s.vb_hi),
-                vb_lo=jnp.where(do_r, vb_lo, s.vb_lo))
-        return s._replace(windows=s.windows + 1)
-
-    def cond(s: BlockedKernelState):
-        # windows < max_iter is an absolute bound on device time: a
-        # healthy RUNNING window applies >= 1 pivot, so windows can never
-        # exceed iterations + 1; if any residual representation mismatch
-        # ever re-creates a zero-pivot cycle this terminates it as
-        # MAXITER instead of hanging the chip.
-        return ((s.status == int(Status.RUNNING))
-                & (s.iterations < max_iter) & (s.windows < max_iter))
-
-    chi0, clo0 = ff32_from_f64(tab.costs)
-    bhi0, blo0 = ff32_from_f64(tab.b)
-    w0 = jnp.ones((r_pad,), jnp.float32)
-    h_d0, vd_hi0, vd_lo0, h_b0, vb_hi0, vb_lo0 = xla_candidates(
-        chi0, clo0, w0)
-    init = BlockedKernelState(
-        tab.T.T, bhi0, blo0, chi0, clo0, tab.z, tab.base,
-        jnp.asarray(int(Status.RUNNING), jnp.int32),
-        jnp.zeros((), jnp.int32), jnp.zeros((), jnp.int32),
-        jnp.asarray(bland_static), h_d0, h_b0, vd_hi0, vd_lo0, vb_hi0,
-        vb_lo0, w0, jnp.zeros((), jnp.int32))
-    final = lax.while_loop(cond, outer, init)
-    costs_out = ff32_to_f64(final.chi, final.clo, vdtype)
-    b_out = ff32_to_f64(final.bhi, final.blo, vdtype)
-    out_tab = dataclasses.replace(
-        tab, T=final.Tt.T, b=b_out, costs=costs_out, z=final.z,
-        base=final.base)
-    return out_tab, final.status, final.iterations
-
-
-def use_pallas(options: SolverOptions) -> bool:
-    """Whether the SEQUENTIAL loop dispatches to the fused single-pivot
-    Pallas kernel (kernels/pivot.py): explicit ``use_pallas=True`` on a
-    TPU backend with a pure-f32 tableau only.
-
-    ``"auto"`` resolves to False here: at the flagship shape the
-    sequential rank-1 update is HBM-bound and the pure-XLA loop already
-    runs at the measured elementwise ceiling — the kernel measured
-    16.28 vs 16.07 ms/pivot (BENCHMARKS.md), so auto takes the faster
-    XLA loop. (The BLOCKED loop's fused passes, gated separately by
-    config.kernel_blocked_enabled, are where Pallas wins and remain on
-    by default.) Never True off-TPU — including explicit True, which
-    would otherwise crash inside ``pl.pallas_call`` (tests exercise the
-    kernel on CPU via interpret mode instead)."""
-    if np.dtype(options.dtype).itemsize != 4:
-        return False
-    if np.dtype(options.vector_dtype) != np.dtype(options.dtype):
-        return False   # the fused kernel is single-dtype
-    if jax.default_backend() != "tpu":
-        return False
-    return options.use_pallas is not False and options.use_pallas != "auto"
-
-
 def run_solve_loop(tab: Tableau, options: SolverOptions, max_iter: int,
                    costs0=None):
-    """Dispatch: deferred block-pivot loop when configured (with the
-    fused Pallas per-pivot passes on TPU when the tableau layout allows),
-    else the Pallas-fused or pure-XLA single-pivot loop. ``costs0`` (the
-    phase's pre-elimination cost vector) enables the blocked loop's exact
-    window-boundary re-pricing; ignored by the single-pivot loops.
+    """Dispatch: the deferred block-pivot loop when ``block_pivots > 1``,
+    else the sequential reference loop. ``costs0`` (the phase's
+    pre-elimination cost vector) enables the blocked loop's exact
+    window-boundary re-pricing; ignored by the sequential loop.
 
     When ``config.normalize_enabled`` (f32 tableaus by default), the
     working cost vector, z, and costs0 are scaled for the duration of
@@ -937,8 +456,7 @@ def run_solve_loop(tab: Tableau, options: SolverOptions, max_iter: int,
     unchanged (scale = 1). Positive scaling never changes an argmin,
     and the ratio test reads the (unscaled) tableau, so only the
     pricing/improvement discipline is affected."""
-    from .config import (EPS_REL_F32, kernel_blocked_enabled,
-                         normalize_enabled)
+    from .config import EPS_REL_F32, normalize_enabled
 
     if (options.pivot_rule_resolved == "devex"
             and not (options.block_pivots
@@ -962,19 +480,7 @@ def run_solve_loop(tab: Tableau, options: SolverOptions, max_iter: int,
             costs0 = costs0 / scale
 
     if options.block_pivots and int(options.block_pivots) > 1:
-        L = int(options.block_pivots)
-        if (kernel_blocked_enabled(options)
-                and tab.rows_padded % 128 == 0
-                and L % min(32, L) == 0
-                # the kernels' 8-row C-slab write needs an 8-aligned L
-                # (kernels/blocked.py colk_costs_pass); odd L falls back
-                and (L < 8 or L % 8 == 0)):
-            out = solve_loop_blocked_kernel(tab, options, max_iter,
-                                            costs0)
-        else:
-            out = solve_loop_blocked(tab, options, max_iter, costs0)
-    elif use_pallas(options):
-        out = solve_loop_pallas(tab, options, max_iter)
+        out = solve_loop_blocked(tab, options, max_iter, costs0)
     else:
         out = solve_loop(tab, options, max_iter)
 

@@ -1,6 +1,6 @@
 """Device tableau representation.
 
-TPU-native equivalent of the reference's tableau storage layer
+Equivalent of the reference's tableau storage layer
 (reference: include/tabular.cuh:5-30, src/tabular.cu:25-39) and of the
 Phase-1 tableau construction (``fillTableu``, twoPhaseMethod.cu:145-200).
 
@@ -14,9 +14,9 @@ variable's column a_h is a contiguous row slice. Unlike the reference:
   cell at index 0 (tabular.cu:35, tabular.cuh:19-20); the objective cell is
   the scalar ``z``. Same semantics, friendlier for sharding: ``T`` and
   ``costs`` shard along the variable axis, ``b``/``base``/``z`` replicate.
-* both axes are padded to TPU tile boundaries (lanes=128 on the constraint
-  axis, sublanes on the variable axis); padding is masked out of every
-  reduction via the static real sizes carried as pytree metadata.
+* both axes are padded (``SolverOptions.lane_pad`` on the constraint
+  axis, ``sublane_pad`` on the variable axis); padding is masked out of
+  every reduction via the static real sizes carried as pytree metadata.
 
 The reference's six-stream fill choreography (twoPhaseMethod.cu:147-199) is
 replaced by a single jitted concatenation XLA fuses on its own, and the
@@ -41,7 +41,8 @@ from .config import SolverOptions
 
 #: One-shot vs chunked structural fill threshold for build_phase1
 #: (bytes of the n x m structural block). Above it the transposed-fill
-#: temp would sit next to A and T in HBM (3.7 GB at the flagship).
+#: temp would sit next to A and T in device memory (3.7 GB at the
+#: 10k x 100k flagship).
 BUILD_CHUNK_BYTES = 1 << 30
 
 
@@ -49,52 +50,15 @@ def round_up(x: int, mult: int) -> int:
     return -(-x // mult) * mult
 
 
-def pow2_chunk(total: int, other_dim: int, bytes_per_elem: int,
-               budget: int) -> int:
-    """Largest power-of-two chunk (>= 8) dividing ``total`` whose
-    (chunk x other_dim) slab of ``bytes_per_elem`` elements stays under
-    ``budget`` bytes. Shared by every place that bounds XLA's f64
-    emulation temporaries (apply_window*, accum_matvec)."""
-    chunk = 8
-    while (chunk * 2 <= total and total % (chunk * 2) == 0
-           and (chunk * 2) * other_dim * bytes_per_elem <= budget):
-        chunk *= 2
-    return chunk
-
-
 def accum_matvec(A: jax.Array, v: jax.Array, contract_axis: int,
                  out_dtype) -> jax.Array:
     """Matrix-vector product contracting ``contract_axis`` of A with v,
-    accumulating in ``out_dtype``. When the accumulator is wider than A's
-    dtype, XLA:TPU materialises an f32[8, *A.shape] temporary (38 GB at
-    the north-star size), so the product is chunked along the kept axis
-    to bound it; same-width products go through one plain dot."""
-    out_dtype = jnp.dtype(out_dtype)
-    v = v.astype(A.dtype)
-
-    def piece(Ai):
-        return jax.lax.dot_general(
-            Ai, v, (((contract_axis,), (0,)), ((), ())),
-            preferred_element_type=out_dtype)
-
-    if out_dtype.itemsize <= A.dtype.itemsize:
-        return piece(A)
-
-    keep_axis = 1 - contract_axis
-    K = A.shape[keep_axis]
-    # temp ~ 8 * chunk * contract_dim * 4 bytes; keep under ~512 MB.
-    chunk = pow2_chunk(K, A.shape[contract_axis], 32, 1 << 29)
-    if chunk >= K:
-        return piece(A)
-
-    out = jnp.zeros((K,), out_dtype)
-
-    def body(i, out):
-        Ai = jax.lax.dynamic_slice_in_dim(A, i * chunk, chunk, keep_axis)
-        return jax.lax.dynamic_update_slice_in_dim(
-            out, piece(Ai), i * chunk, 0)
-
-    return jax.lax.fori_loop(0, K // chunk, body, out)
+    accumulating in ``out_dtype`` (f64 over an f32 tableau in the mixed
+    mode) at full precision — never TF32."""
+    return jax.lax.dot_general(
+        A, v.astype(A.dtype), (((contract_axis,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
+        preferred_element_type=jnp.dtype(out_dtype))
 
 
 @partial(jax.tree_util.register_dataclass,
@@ -138,16 +102,8 @@ class Tableau:
 
 
 def padded_dims(n: int, m: int, options: SolverOptions) -> tuple[int, int, int]:
-    """(R1_pad, R2_pad, M_pad) for phase-1 rows n+2m, phase-2 rows n+m.
-
-    When the fused Pallas blocked-pivot kernels are active the variable
-    axis is padded to full 128-lane tiles (it is the LANE axis of the
-    transposed tableau the kernels stream)."""
-    from .config import kernel_blocked_enabled
-
+    """(R1_pad, R2_pad, M_pad) for phase-1 rows n+2m, phase-2 rows n+m."""
     sub = options.sublane_pad
-    if kernel_blocked_enabled(options):
-        sub = max(sub, 128)
     return (round_up(n + 2 * m, sub),
             round_up(n + m, sub),
             round_up(m, options.lane_pad))
@@ -228,7 +184,7 @@ def gaussian_eliminate(tab: Tableau) -> Tableau:
     """Objective-row elimination (reference updateObjectiveFunction,
     gaussian.cu:110-162): ``costs -= T @ costs[base]``,
     ``z -= b @ costs[base]``. The reference's atomicAdd tree-reduction
-    kernels collapse into one XLA matvec that runs on the MXU.
+    kernels collapse into one XLA matvec.
 
     Out-of-range base entries (padding, or artificials left basic over a
     truncated tableau — their columns are zeroed) contribute 0.
@@ -238,13 +194,13 @@ def gaussian_eliminate(tab: Tableau) -> Tableau:
     coeffs = jnp.where(
         valid, tab.costs[jnp.minimum(tab.base, R_pad - 1)], 0.0)
     # Accumulate in the vector dtype over the (possibly narrower) tableau
-    # dtype without materialising a promoted copy of T (chunked if the
-    # accumulator is wider - see accum_matvec).
+    # dtype.
     delta = accum_matvec(tab.T, coeffs, 1, tab.costs.dtype)
     return dataclasses.replace(
         tab,
         costs=tab.costs - delta,
-        z=tab.z - tab.b @ coeffs,
+        z=tab.z - jnp.dot(tab.b, coeffs,
+                          precision=jax.lax.Precision.HIGHEST),
     )
 
 
@@ -257,9 +213,8 @@ def phase2_reset(tab: Tableau, c: jax.Array,
     ``rows``), costs become [-c | 0], and the objective cell z carries over
     from phase 1 verbatim (the reference never resets costs[0]).
 
-    ``r2_pad`` overrides the phase-2 row padding (callers with
-    backend-independent padding needs — the batched kernel driver — pass
-    it explicitly, like build_phase1's ``dims``)."""
+    ``r2_pad`` overrides the phase-2 row padding (like build_phase1's
+    ``dims``)."""
     n, m = tab.n, tab.m
     if r2_pad is None:
         _, R2_pad, _ = padded_dims(n, m, options)

@@ -33,7 +33,11 @@ def _build_library() -> ctypes.CDLL | None:
     try:
         if (not lib_path.exists()
                 or lib_path.stat().st_mtime < _SRC.stat().st_mtime):
-            with tempfile.TemporaryDirectory() as td:
+            # Build inside the destination's own directory: os.replace
+            # from a TemporaryDirectory in the system temp dir into the
+            # tree raises EXDEV across filesystems, which would silently
+            # put every regeneration on the slow pure-Python path.
+            with tempfile.TemporaryDirectory(dir=_SRC.parent) as td:
                 tmp = os.path.join(td, "xorwow.so")
                 subprocess.run(
                     ["g++", "-O3", "-shared", "-fPIC", str(_SRC),

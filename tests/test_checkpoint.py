@@ -173,10 +173,9 @@ def test_single_chip_rejects_sharded_checkpoint(problem, tmp_path):
         solve_resumable(problem, path)
 
 
-def test_sharded_checkpoint_blocked_kernel_path(problem, tmp_path):
-    """The windowed sharded runner dispatches to the fused-kernel blocked
-    loop (interpret mode on the CPU mesh) like the non-checkpointed
-    production path."""
+def test_sharded_checkpoint_blocked_path(problem, tmp_path):
+    """The windowed sharded runner dispatches to the sharded blocked
+    loop in the mixed production mode like the non-checkpointed path."""
     from simplex_tpu.checkpoint import solve_resumable_sharded
     from simplex_tpu.config import SolverOptions
 
@@ -185,8 +184,7 @@ def test_sharded_checkpoint_blocked_kernel_path(problem, tmp_path):
                          eps=1e-5, block_pivots=8)
     want = solve_oracle(problem)
     got = solve_resumable_sharded(problem, _mesh(4), path,
-                                  checkpoint_every=60, options=opts,
-                                  interpret=True)
+                                  checkpoint_every=60, options=opts)
     assert got.status == Status.OPTIMAL
     assert got.objective == pytest.approx(want.objective, rel=1e-4)
     assert not os.path.exists(path)

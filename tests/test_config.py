@@ -7,7 +7,7 @@ vertex. eps=None therefore resolves by tableau dtype — and the
 resolution must survive ``dataclasses.replace`` (the keyword path every
 ``solve(p, dtype=...)`` call goes through), which once carried the f64
 default's resolved 1e-9 into f32 runs and turned a 33-pivot phase 2
-into a 150,000-pivot MAXITER crawl (TPU watchdog kill).
+into a 150,000-pivot MAXITER crawl.
 """
 
 import dataclasses

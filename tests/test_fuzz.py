@@ -1,8 +1,8 @@
 """Randomized cross-mode agreement fuzz.
 
-Every solve mode (sequential XLA, deferred block pivoting, the fused
-blocked-kernel loop via the sharded interpret path) must agree with the
-NumPy oracle on status and, for OPTIMAL, on the objective — across a
+Every solve mode (sequential, deferred block pivoting, the sharded
+blocked loop, the vmapped batch) must agree with the NumPy oracle on
+status and, for OPTIMAL, on the objective — across a
 spread of shapes, seeds, and value ranges, including shapes chosen to
 sit on padding boundaries. This is the wide-net complement to the
 instance-specific parity tests (tests/test_parity.py asserts bit-level
@@ -32,8 +32,8 @@ CASES = [
 def _modes():
     # (name, options, objective rel-tol, feasibility rel-tol): the f32
     # tableau carries ~1e-7-relative coefficient rounding that shows up
-    # as ~1e-5-relative constraint residuals in x (BENCHMARKS.md
-    # "Accuracy"); the f64 modes are tight.
+    # as ~1e-5-relative constraint residuals in x; the f64 modes are
+    # tight.
     yield "f64-seq", dict(dtype=np.float64), 1e-9, 1e-9
     yield "f64-blocked", dict(dtype=np.float64, block_pivots=8), 1e-9, 1e-8
     yield "mixed-blocked", dict(dtype=np.float32,
@@ -130,64 +130,52 @@ def test_modes_agree_with_oracle(n, m, seed, lo, hi):
             assert abs(problem.c @ x - got.objective) < otol * scale, name
 
 
+MIXED_L8 = dict(dtype=np.float32, vector_dtype=np.float64,
+                block_pivots=8, eps=1e-5)
+
+
+def _check_mixed(problem, want, status, objective, x, label):
+    assert status == want.status, (label, status, want.status)
+    if want.status == Status.OPTIMAL:
+        scale = 1 + abs(want.objective)
+        assert abs(objective - want.objective) < 1e-4 * scale, (
+            label, objective, want.objective)
+        x = np.asarray(x)
+        bscale = 1 + np.abs(problem.b).max()
+        assert (problem.A @ x - problem.b).max() < 1e-4 * bscale, label
+        assert (x >= -1e-4 * bscale).all(), label
+
+
 @pytest.mark.parametrize("n,m,seed,lo,hi", CASES)
-def test_kernel_loop_agrees_with_oracle(n, m, seed, lo, hi):
-    """The fused blocked-KERNEL loop (interpret mode via the sharded
-    path, 2 shards) across the same case spread — the wide-net
-    complement to test_blocked_kernel's targeted cases. Padding-boundary
-    shapes here exercise the kernels' full-axis (lane-illegal-width)
-    fallbacks and the r_lim shard edges."""
+def test_sharded_blocked_agrees_with_oracle(n, m, seed, lo, hi):
+    """The sharded blocked loop on the 8-device CPU mesh across the same
+    case spread; shapes smaller than the mesh leave shards that own only
+    padding rows."""
     import jax
     from jax.sharding import Mesh
 
-    from simplex_tpu.parallel.sharded import make_sharded_solver
+    from simplex_tpu.parallel.sharded import solve_sharded
 
     problem = generate_random_problem(n, m, seed, lo, hi)
     want = solve_oracle(problem)
-    opt = SolverOptions(dtype=np.float32, vector_dtype=np.float64,
-                        block_pivots=8, eps=1e-5)
-    mesh = Mesh(np.array(jax.devices()[:2]), ("vars",))
-    fn = make_sharded_solver(mesh, n, m, opt, interpret=True)
-    import jax.numpy as jnp
-
-    out = jax.device_get(fn(jnp.asarray(problem.A),
-                            jnp.asarray(problem.b),
-                            jnp.asarray(problem.c)))
-    assert Status(int(out.status)) == want.status, (int(out.status),
-                                                    want.status)
-    if want.status == Status.OPTIMAL:
-        scale = 1 + abs(want.objective)
-        assert abs(float(out.objective) - want.objective) < 1e-4 * scale
-        x = np.asarray(out.x)
-        bscale = 1 + np.abs(problem.b).max()
-        assert (problem.A @ x - problem.b).max() < 1e-4 * bscale
-        assert (x >= -1e-4 * bscale).all()
+    mesh = Mesh(np.array(jax.devices()[:8]), ("vars",))
+    got = solve_sharded(problem, mesh,
+                        SolverOptions(**MIXED_L8, refine=False))
+    _check_mixed(problem, want, got.status, got.objective, got.x,
+                 "sharded")
 
 
 @pytest.mark.parametrize("n,m,seed,lo,hi", CASES)
-def test_batched_kernel_agrees_with_oracle(n, m, seed, lo, hi):
-    """The batched in-VMEM kernel (interpret mode) across the same case
-    spread, three lanes per case, under BOTH in-kernel pricing rules —
-    the wide-net complement to test_batched_kernel's targeted cases.
-    Padding-boundary shapes exercise the single-tile r_pad=128 layouts
-    the multi-tile walk tests deliberately avoid."""
+def test_batched_agrees_with_oracle(n, m, seed, lo, hi):
+    """The vmapped batch across the same case spread, three lanes per
+    case, under both pricing rules of the production loop."""
     from simplex_tpu.batch import solve_batched
 
     problems = [generate_random_problem(n, m, s, lo, hi)
                 for s in (seed, seed + 10, seed + 20)]
     wants = [solve_oracle(p) for p in problems]
     for rule in ("dantzig", "devex"):
-        opt = SolverOptions(dtype=np.float32, vector_dtype=np.float64,
-                            block_pivots=8, eps=1e-5, pivot_rule=rule)
-        results = solve_batched(problems, opt, kernel="interpret")
+        opt = SolverOptions(**MIXED_L8, pivot_rule=rule, refine=False)
+        results = solve_batched(problems, opt)
         for p, got, want in zip(problems, results, wants):
-            assert got.status == want.status, (rule, got.status,
-                                               want.status)
-            if want.status == Status.OPTIMAL:
-                scale = 1 + abs(want.objective)
-                assert abs(got.objective - want.objective) \
-                    < 1e-4 * scale, (rule, got.objective, want.objective)
-                x = np.asarray(got.x)
-                bscale = 1 + np.abs(p.b).max()
-                assert (p.A @ x - p.b).max() < 1e-4 * bscale, rule
-                assert (x >= -1e-4 * bscale).all(), rule
+            _check_mixed(p, want, got.status, got.objective, got.x, rule)

@@ -6,7 +6,7 @@ import pytest
 
 from simplex_tpu import (Problem, SolverOptions, Status,
                          generate_random_problem, solve_oracle)
-from tests.conftest import assert_valid_solution
+from conftest import assert_valid_solution
 
 
 def test_small_problem_golden(small_problem):

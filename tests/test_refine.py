@@ -20,7 +20,7 @@ from simplex_tpu import (Problem, SolverOptions, Status,
 from simplex_tpu.config import refine_enabled
 from simplex_tpu.refine import (certificates_pass, refine_solution,
                                 refine_solution_host)
-from tests.conftest import assert_valid_solution
+from conftest import assert_valid_solution
 
 MIXED = dict(dtype=np.float32, vector_dtype=np.float64, block_pivots=16)
 
@@ -206,21 +206,20 @@ class TestBatched:
     def test_batched_lanes_refined(self):
         problems = [generate_random_problem(96, 40, s, 1, 100)
                     for s in (1, 2, 3, 4)]
-        rs = solve_batched(problems, mixed_options(), kernel=False)
+        rs = solve_batched(problems, mixed_options())
         for p, r in zip(problems, rs):
             ro = solve_oracle(p)
             assert r.status == ro.status == Status.OPTIMAL
             assert r.refine is not None and r.refine.certified
             assert r.objective == pytest.approx(ro.objective, rel=1e-9)
 
-    def test_batched_kernel_path_refined(self):
-        """Interpret-mode batched kernel lanes go through the same
-        host refinement (the kernel path's L-window drift is exactly
-        what refinement erases — the r4 accuracy-speed coupling)."""
+    def test_batched_short_window_lanes_refined(self):
+        """Short-window (L=8) vmapped lanes go through the same host
+        refinement: the window's f32 eta drift is exactly what the
+        refinement erases."""
         problems = [generate_random_problem(64, 24, s, 1, 100)
                     for s in (5, 6)]
-        rs = solve_batched(problems, mixed_options(block_pivots=8),
-                           kernel="interpret")
+        rs = solve_batched(problems, mixed_options(block_pivots=8))
         for p, r in zip(problems, rs):
             ro = solve_oracle(p)
             assert r.status == ro.status == Status.OPTIMAL
@@ -230,8 +229,7 @@ class TestBatched:
     def test_batched_fallback_lane(self):
         problems = [generate_random_problem(48, 20, s, 1, 100)
                     for s in (8, 9)]
-        rs = solve_batched(problems, mixed_options(refine_tol=1e-300),
-                           kernel=False)
+        rs = solve_batched(problems, mixed_options(refine_tol=1e-300))
         for p, r in zip(problems, rs):
             ro = solve_oracle(p)
             assert r.refine is not None and r.refine.fallback
@@ -247,11 +245,11 @@ class TestSharded:
 
         mesh = Mesh(np.array(jax.devices()[:4]), ("vars",))
         p = generate_random_problem(160, 64, 13, 1, 100)
-        r = solve_sharded(p, mesh, mixed_options(), interpret=True)
+        r = solve_sharded(p, mesh, mixed_options())
         ro = solve_oracle(p)
         assert r.status == ro.status == Status.OPTIMAL
         assert r.refine is not None and r.refine.certified
         # the psum-gathered slack block preconditions it — no LU on the
-        # sharded production path either (r5)
+        # sharded production path either
         assert r.refine.method == "tableau"
         assert r.objective == pytest.approx(ro.objective, rel=1e-9)

@@ -30,7 +30,7 @@ def _drifted_restart_inputs(p, stop_short: int, drift: float,
     block perturbed by ``drift`` relative noise (simulating the f32
     tableau drift Newton-Schulz must sharpen away)."""
     from simplex_tpu.tableau import padded_dims
-    from tests.test_finish import _suboptimal_feasible_basis
+    from test_finish import _suboptimal_feasible_basis
 
     m, n = p.constraints, p.vars
     base = np.asarray(_suboptimal_feasible_basis(p, stop_short))

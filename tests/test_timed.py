@@ -120,7 +120,7 @@ def test_per_iteration_debug_dumps_every_pivot(capsys):
 
 
 def test_aggregate_windowing_matches_unwindowed(monkeypatch, tmp_path):
-    """The watchdog guard (DEVICE_CALL_PIVOT_CAP) re-enters the host
+    """The device-call pivot cap (DEVICE_CALL_PIVOT_CAP) re-enters the host
     between fixed-size solve windows; pivot counts, objective, and the
     CSV row contract must be identical to a single unbounded call — for
     both the single-pivot loop and the blocked (deferred-pivot) loop."""

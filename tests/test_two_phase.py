@@ -6,7 +6,7 @@ import pytest
 
 from simplex_tpu import (Problem, SolverOptions, Status,
                          generate_random_problem, solve, solve_oracle)
-from tests.conftest import assert_valid_solution
+from conftest import assert_valid_solution
 
 
 def test_small_problem_golden(small_problem):
@@ -35,7 +35,7 @@ def test_unbounded_problem_golden():
     (reference data/examples/unboundedProblem.txt: max 2x0 + x1 s.t.
     x0 - x1 <= 10, 2x0 - x1 <= 40 — x1 grows without bound)."""
     from simplex_tpu import read_problem
-    from tests.conftest import DATA
+    from conftest import DATA
 
     p = read_problem(DATA / "unboundedProblem.txt")
     assert (p.vars, p.constraints) == (2, 2)
@@ -143,7 +143,7 @@ def test_wide_and_tall_shapes():
 
 def test_chunked_flagship_build_matches_oneshot(monkeypatch):
     """build_phase1's chunked structural fill (used past
-    BUILD_CHUNK_BYTES to keep multi-GB flagship builds inside HBM) is
+    BUILD_CHUNK_BYTES to keep multi-GB flagship builds in device memory) is
     bitwise identical to the one-shot concat path, including the
     clamped-overlap tail chunk and negative-b sign flips."""
     import jax.numpy as jnp

@@ -1,23 +1,14 @@
-"""Measure the f64 refinement stage at the flagship shape on TPU.
+"""Measure the f64 refinement stage at the flagship shape on one GPU.
 
-The r5 deliverable number: what does certifying a mixed-precision
-flagship-class solve to f64 cost on top of the solve itself? Data is
-generated ON DEVICE (f32 — an 8 GB f64 A would not coexist with both
-tableau orientations in 16 GB HBM; refinement casts to f64 internally,
-certifying against the f32-representable problem actually being
-solved). Reports, separately: mixed solve wall, the
+What does certifying a mixed-precision flagship-class solve to f64 cost
+on top of the solve itself? Data is generated ON DEVICE in f32 (the
+refinement accumulates in f64 against the f32-representable problem
+actually being solved). Reports, separately: mixed solve wall, the
 tableau-preconditioned refine (compile and warm), and the resulting
-certificates.
+certificates. The fused solve_device(+binv) program's peak device memory
+at m=10k x n=100k is not measured on the H100 yet.
 
-Measured envelope on the 16 GB v5e: the fused solve_device(+binv)
-program fits to ~n=50k at m=10k (A param + both tableau orientations
-across the two phase loops peak at 17.3 GB at n=100k — XLA cannot
-overlap the phase buffers across the repair cond). The FULL n=100k
-flagship is driven loop-level (bench.py) or sharded across chips,
-where per-chip memory scales; --vars 50000 is this tool's default
-measurement point for the refine overhead at full m.
-
-Run alone on the TPU: python tools/measure_refine_flagship.py
+Run on the card (one process): python tools/measure_refine_flagship.py
 """
 
 from __future__ import annotations
@@ -36,7 +27,7 @@ def log(msg):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--vars", type=int, default=50_000)
+    ap.add_argument("--vars", type=int, default=100_000)
     ap.add_argument("--constraints", type=int, default=10_000)
     ap.add_argument("--block", type=int, default=128)
     args = ap.parse_args()
@@ -53,7 +44,10 @@ def main():
     n, m = args.vars, args.constraints
     options = SolverOptions(dtype=np.float32, vector_dtype=np.float64,
                             block_pivots=args.block)
-    log(f"devices: {jax.devices()}  rule={options.pivot_rule_resolved}")
+    from simplex_tpu.device import card_info, require_gpu
+
+    log(f"device: {require_gpu()}; card: {card_info()}; "
+        f"rule={options.pivot_rule_resolved}")
 
     key = jax.random.key(n * 100 + m)
     ka, kb, kc = jax.random.split(key, 3)
@@ -62,11 +56,12 @@ def main():
     c = jax.random.uniform(kc, (n,), jnp.float32, 1.0, 100.0)
     b64 = b.astype(jnp.float64)
     c64 = c.astype(jnp.float64)
-    float(A[0, 0])
+    jax.block_until_ready((A, b64, c64))
     log(f"on-device instance {m} x {n} built")
 
     t0 = time.perf_counter()
-    out, binv = solve_device_with_binv(A, b64, c64, n, m, options)
+    out, binv = jax.block_until_ready(
+        solve_device_with_binv(A, b64, c64, n, m, options))
     status = int(out.status)
     p1, p2 = int(out.iterations_phase1), int(out.iterations_phase2)
     solve_s = time.perf_counter() - t0

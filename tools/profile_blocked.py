@@ -1,14 +1,14 @@
-"""Microbenchmark the blocked solve loop's per-pivot pieces on TPU.
+"""Microbenchmark the blocked solve loop's per-pivot pieces on one GPU.
 
 Times each component of solve_loop_blocked's inner pivot at the flagship
 shape (m=10k x n=100k, f32 tableau + f64 vectors, L=128) in its own
-jitted fori_loop, so the 0.40 ms/pivot budget can be attributed:
+jitted fori_loop, so the marginal ms/pivot (bench.py) can be attributed:
 corr_vec over C (the O(LR) read), corr_vec over F, the strided live-row
 fetch, the f64 vector updates, the argmins, the eta appends, and the
 amortised window apply. Diagnostics to stderr, one summary line per
 component.
 
-Run standalone on the TPU (one process!): python tools/profile_blocked.py
+Run on the card (one process): python tools/profile_blocked.py
 """
 
 from __future__ import annotations
@@ -44,8 +44,10 @@ def main():
     from jax import lax
 
     from simplex_tpu.config import SolverOptions
-    from simplex_tpu.solver import _dot_precision
+    from simplex_tpu.device import card_info, require_gpu
     from simplex_tpu.tableau import round_up
+
+    log(f"device: {require_gpu()}; card: {card_info()}")
 
     n, m, L, K = args.vars, args.constraints, args.block, args.iters
     opt = SolverOptions(dtype=np.float32,
@@ -66,19 +68,17 @@ def main():
 
     def timeit(name, fn, *arrs):
         jfn = jax.jit(fn)
-        out = jfn(*arrs)
-        float(jax.tree.leaves(out)[0].ravel()[0])    # sync via readback
+        jax.block_until_ready(jfn(*arrs))
         times = []
         for _ in range(3):
             t0 = time.perf_counter()
-            out = jfn(*arrs)
-            float(jax.tree.leaves(out)[0].ravel()[0])
+            jax.block_until_ready(jfn(*arrs))
             times.append(time.perf_counter() - t0)
         best = min(times) / K * 1e6
         log(f"{name:34s} {best:9.1f} us/iter")
         return best
 
-    prec = _dot_precision(dtype)
+    prec = lax.Precision.HIGHEST
 
     # Each piece in a K-iteration fori_loop with a data dependency so XLA
     # cannot hoist it. h/k rotate to defeat any per-index caching.

@@ -1,22 +1,20 @@
 """Standalone reproducer for the XLA:CPU executable-accumulation crash.
 
-Background (r4): with ~300 XLA:CPU executables alive in one process —
-the shape the test suite reaches naturally, many of them interpret-mode
-Pallas while-loops — the process segfaults nondeterministically in
-late-suite modules. tests/conftest.py works around it with an autouse
+Background: with ~300 XLA:CPU executables alive in one process — the
+shape the test suite reaches naturally, many of them while-loops — the
+process segfaulted nondeterministically in late-suite modules. tests/conftest.py works around it with an autouse
 module-scoped ``jax.clear_caches()``; this tool gives the mitigation a
 DOCUMENTED trigger condition by compiling distinct while-loop programs
-(optionally interpret-mode Pallas ones) in a child process until it
-dies or survives the budget.
+in a child process until it dies or survives the budget.
 
 Usage:
     python tools/repro_xla_cpu_exec_accumulation.py [--budget 600]
-        [--pallas] [--clear-every 0]
+        [--clear-every 0]
 
 The parent forks a child per configuration and reports the executable
 count at death (or survival). ``--clear-every K`` inserts the
 mitigation every K compiles — with it, the child must survive any
-budget; without it, death before the budget reproduces the r4 crash.
+budget; without it, death before the budget reproduces the crash.
 Runs on CPU regardless of the session backend.
 """
 
@@ -38,44 +36,21 @@ import jax.numpy as jnp
 from jax import lax
 
 budget = int(sys.argv[1])
-use_pallas = sys.argv[2] == "1"
-clear_every = int(sys.argv[3])
+clear_every = int(sys.argv[2])
 
-if use_pallas:
-    from jax.experimental import pallas as pl
+def make(i):
+    w = 128 + 8 * (i % 64)
 
-    def make(i):
-        # distinct shapes -> distinct executables (no cache hits)
-        w = 128 + 8 * (i % 64)
+    def f(x):
+        def body(s):
+            j, acc = s
+            return j + 1, acc * 1.0001 + x
 
-        def kernel(x_ref, o_ref):
-            def body(s):
-                j, acc = s
-                return j + 1, acc + x_ref[:] * (1.0 + j)
+        return lax.while_loop(lambda s: s[0] < jnp.int32(4 + i % 7),
+                              body,
+                              (jnp.int32(0), x))[1]
 
-            _, acc = lax.while_loop(lambda s: s[0] < jnp.int32(3), body,
-                                    (jnp.int32(0),
-                                     jnp.zeros((8, w), jnp.float32)))
-            o_ref[:] = acc
-
-        f = pl.pallas_call(
-            kernel, out_shape=jax.ShapeDtypeStruct((8, w), jnp.float32),
-            interpret=True)
-        return jax.jit(f), jnp.ones((8, w), jnp.float32)
-else:
-    def make(i):
-        w = 128 + 8 * (i % 64)
-
-        def f(x):
-            def body(s):
-                j, acc = s
-                return j + 1, acc * 1.0001 + x
-
-            return lax.while_loop(lambda s: s[0] < jnp.int32(4 + i % 7),
-                                  body,
-                                  (jnp.int32(0), x))[1]
-
-        return jax.jit(f, static_argnums=()), jnp.ones((8, w), jnp.float32)
+    return jax.jit(f, static_argnums=()), jnp.ones((8, w), jnp.float32)
 
 for i in range(budget):
     f, x = make(i)
@@ -91,9 +66,6 @@ print(f"SURVIVED {budget}", flush=True)
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--budget", type=int, default=600)
-    ap.add_argument("--pallas", action="store_true",
-                    help="interpret-mode Pallas while-loops (the shape "
-                         "the suite accumulates)")
     ap.add_argument("--clear-every", type=int, default=0,
                     help="insert jax.clear_caches() every K compiles "
                          "(the conftest mitigation); 0 = never")
@@ -103,7 +75,7 @@ def main():
     env.pop("JAX_PLATFORMS", None)
     proc = subprocess.run(
         [sys.executable, "-c", CHILD, str(args.budget),
-         "1" if args.pallas else "0", str(args.clear_every)],
+         str(args.clear_every)],
         env=env, capture_output=True, text=True)
     tail = proc.stdout.strip().splitlines()
     last = tail[-1] if tail else "(no output)"
